@@ -1,19 +1,17 @@
 """Cold-compile audit: which XLA programs dominate each config's cold wall?
 
-VERDICT r4 weak-6: a first-time user pays up to ~3 minutes of compiles per
-BASELINE config (config-5 186.6 s cold) and nobody had counted which of
-the O(log χ) bucketed programs dominate. This tool measures it:
+A first-time user pays the compiles of every bucketed program a BASELINE
+config needs. This tool counts them:
 
     python benchmarks/audit_compiles.py <config> [--cpu]
 
-config ∈ {1, 2, 3, 4, 5}. Runs that config ONCE with a FRESH compilation
-cache (tmpdir) and `jax_log_compiles`, capturing every
+config ∈ {1, 2, 3, 4, 5}. Runs that config ONCE with the persistent
+compilation cache disabled and `jax_log_compiles` on, capturing every
 "Finished XLA compilation of <name> in <t> sec" record, and prints one
 JSON line: {config, total_wall_s, n_programs, compile_s_total, top:
-[{name, count, total_s}...]} — the attribution table for
-docs/STATUS.md's cold-start section. Compile names are aggregated by
-jit-name (the shape-bucket suffix stripped), so "the while-sweep engine
-compiled 9 buckets x 4 s" reads directly off the table.
+[{name, count, total_s}...]}. Compile names are aggregated by jit-name
+(the shape-bucket suffix stripped), so "the while-sweep engine compiled 9
+buckets x 4 s" reads directly off the table.
 """
 
 from __future__ import annotations
@@ -22,7 +20,6 @@ import json
 import logging
 import re
 import sys
-import tempfile
 import time
 from collections import defaultdict
 
@@ -86,9 +83,8 @@ def main():
 
     if "--cpu" in sys.argv:
         jax.config.update("jax_platforms", "cpu")
-    # FRESH cache: this measures the true first-user cold path
-    jax.config.update("jax_compilation_cache_dir",
-                      tempfile.mkdtemp(prefix="tci_audit_cache_"))
+    # no persistent cache: this measures the true first-user cold path
+    jax.config.update("jax_enable_compilation_cache", False)
     jax.config.update("jax_log_compiles", True)
     cap = _Capture()
     logging.getLogger("jax").addHandler(cap)
@@ -97,11 +93,6 @@ def main():
     # machine-readable)
     import contextlib
     import io
-    import os
-
-    import jax.numpy as jnp
-
-    float(jnp.sum(jnp.ones((8, 8))))  # chip grant outside the timed region
 
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -128,8 +119,6 @@ def main():
         "compile_s_total": round(sum(s for _, s in cap.events), 1),
         "top": top[:12],
     }))
-    sys.stdout.flush()
-    os._exit(0)  # skip slow backend teardown; output is already printed
 
 
 if __name__ == "__main__":

@@ -28,9 +28,9 @@ def main(N: int = 6, GKorder: int = 15, tol: float = 1e-7):
     weights = jnp.asarray((b - a) * weights1d / 2)
     normalization = float(GKorder) ** N
 
-    # pair-valued integrand: the TPU backend has no complex lowering, so the
-    # oscillatory phase is written as (cos, sin) in pure f64 real arithmetic
-    # and the complex-pair device kernels (ops/complex_pair.py) do the rest.
+    # pair-valued integrand: the oscillatory phase is written as (cos, sin)
+    # in pure f64 real arithmetic and the complex-pair device kernels
+    # (ops/complex_pair.py) do the rest.
     def fpair(idx):
         t = nodes[idx]
         w = jnp.prod(weights[idx])
@@ -108,8 +108,7 @@ if __name__ == "__main__":
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from _common import finish, setup_cache
+    from _common import setup_cache
 
     setup_cache()
     main()
-    finish()

@@ -1,7 +1,7 @@
 """Dispatch-fusion tier benchmarks: whole-optimization loop, device
 floating-zone, and whole-contraction programs.
 
-Measures, on the current backend (the driver runs it on the TPU chip):
+Measures, on JAX's default backend:
   1. crossinterpolate2 warm wall with the multi-iteration loop ON vs OFF
      (the OFF tier is the per-iteration sweep-pair program) — same
      trajectories bit-for-bit, so the ratio is pure dispatch overhead.
@@ -20,7 +20,7 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _common import finish, setup_cache  # noqa: E402
+from _common import setup_cache  # noqa: E402
 
 
 def _median3(fn):
@@ -125,8 +125,4 @@ def main():
 
 
 if __name__ == "__main__":
-    import threading
-
-    threading.Timer(1500.0, lambda: os._exit(3)).start()
     main()
-    finish()

@@ -74,8 +74,7 @@ if __name__ == "__main__":
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from _common import finish, setup_cache
+    from _common import setup_cache
 
     setup_cache()
     main()
-    finish()

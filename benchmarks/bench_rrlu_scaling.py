@@ -20,34 +20,32 @@ def main():
     for N in [100, 500, 1000, 2000]:
         rank = max(16, N // 16)
         k1, k2 = jax.random.split(jax.random.fold_in(key, N))
-        U = jax.random.normal(k1, (N, rank), dtype=jnp.float32)
-        V = jax.random.normal(k2, (rank, N), dtype=jnp.float32)
-        s = jnp.exp(-jnp.arange(rank, dtype=jnp.float32) / 8.0)
-        A = ((U * s) @ V).astype(jnp.float64)
-        float(jnp.sum(A))
+        U = jax.random.normal(k1, (N, rank), dtype=jnp.float64)
+        V = jax.random.normal(k2, (rank, N), dtype=jnp.float64)
+        s = jnp.exp(-jnp.arange(rank, dtype=jnp.float64) / 8.0)
+        A = jax.block_until_ready((U * s) @ V)
         args = (
             A, jnp.int32(N), jnp.int32(N), jnp.int32(rank),
             jnp.float64(1e-10), jnp.float64(0.0),
         )
-        out = _rrlu_while(*args, leftorthogonal=True)
-        int(out[3])  # warm-up
+        jax.block_until_ready(_rrlu_while(*args, leftorthogonal=True))
         t0 = time.perf_counter()
-        out = _rrlu_while(*args, leftorthogonal=True)
-        r = int(out[3])
-        float(jnp.sum(jnp.abs(out[0])))
+        out = jax.block_until_ready(_rrlu_while(*args, leftorthogonal=True))
         wall = time.perf_counter() - t0
+        r = int(out[3])
 
         Ah = np.asarray(A)
         t0 = time.perf_counter()
         scipy.linalg.lu(Ah)
         cpu = time.perf_counter() - t0
         results[str(N)] = {
-            "rrlu_tpu_s": round(wall, 4),
+            "rrlu_device_s": round(wall, 4),
             "scipy_dense_lu_s": round(cpu, 4),
             "npivots": r,
         }
 
-    speedup_2000 = results["2000"]["scipy_dense_lu_s"] / results["2000"]["rrlu_tpu_s"]
+    speedup_2000 = (results["2000"]["scipy_dense_lu_s"]
+                    / results["2000"]["rrlu_device_s"])
     print(
         json.dumps(
             {
@@ -66,8 +64,7 @@ if __name__ == "__main__":
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from _common import finish, setup_cache
+    from _common import setup_cache
 
     setup_cache()
     main()
-    finish()

@@ -1,12 +1,10 @@
 """Component profile of the config-4 (10-D GK integration) device path.
 
-Round-2 gap: integrate(jax_native=True) ran 70.8 s warm on the TPU while
-the vectorized host tier did 4.7 s — with no breakdown of where the 70 s
-went. This script reproduces integrate()'s jax_native integrand exactly
-(models/integration.py:60-92: GK nodes/weights as one-hot contractions)
-and runs crossinterpolate2 directly so the per-iteration stats dict
-(models/tensorci2.py optimize) is visible: sweep wall, global-search wall,
-ranks, plus engine capacity growth.
+Where does integrate(jax_native=True)'s wall go? This script reproduces
+integrate()'s jax_native integrand exactly (models/integration.py: GK
+nodes/weights as one-hot contractions) and runs crossinterpolate2 directly
+so the per-iteration stats dict (models/tensorci2.py optimize) is visible:
+sweep wall, global-search wall, ranks, plus engine capacity growth.
 
 Usage: python profile_config4.py [--rook] [--no-device-sweep]
 """
@@ -17,7 +15,7 @@ import time
 
 import numpy as np
 
-from _common import finish, setup_cache
+from _common import setup_cache
 
 
 def main(pivotsearch: str = "full", enable_device_sweep: bool = True):
@@ -121,4 +119,3 @@ if __name__ == "__main__":
         pivotsearch="rook" if "--rook" in sys.argv else "full",
         enable_device_sweep="--no-device-sweep" not in sys.argv,
     )
-    finish()

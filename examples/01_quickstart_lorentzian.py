@@ -4,13 +4,11 @@ f(v) = 1 / (1 + v·v) on the grid {0..9}^8 — 10^8 points, learned from a
 few hundred thousand adaptively chosen samples. Two ways to supply f:
 
 1. a plain Python callable (sampled point-by-point on the host),
-2. a jax-traceable callable wrapped in JaxBatchEvaluator — the TPU-native
+2. a jax-traceable callable wrapped in JaxBatchEvaluator — the device
    path where whole sweeps compile into single device programs.
 """
 
-import _common
-
-_common.setup_backend()
+import _common  # noqa: F401  (repo root on sys.path)
 
 import numpy as np
 
@@ -38,7 +36,7 @@ print(f"  tt{pt} = {tt(pt):.12f}   f{pt} = {f(pt):.12f}")
 print(f"  sum over the full grid: {tt.sum():.10f}")
 
 
-# --- 2. TPU-native: jax-traceable integrand --------------------------------
+# --- 2. device path: jax-traceable integrand -------------------------------
 import jax.numpy as jnp
 
 from tci_tpu import JaxBatchEvaluator

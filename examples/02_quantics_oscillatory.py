@@ -6,9 +6,7 @@ TCI rank stays tiny (pattern of reference test_tensorci2.jl:346-364 at
 production R; BASELINE config 3 runs R=40).
 """
 
-import _common
-
-_common.setup_backend()
+import _common  # noqa: F401  (repo root on sys.path)
 
 import numpy as np
 

@@ -6,9 +6,7 @@ Two paths: host-sampled, and jax_native=True where the weighted integrand
 samples on the accelerator through whole-sweep device programs.
 """
 
-import _common
-
-_common.setup_backend()
+import _common  # noqa: F401  (repo root on sys.path)
 
 import time
 

@@ -7,9 +7,7 @@ all three against the dense matrix product. jax_native=True moves each
 algorithm onto device programs.
 """
 
-import _common
-
-_common.setup_backend()
+import _common  # noqa: F401  (repo root on sys.path)
 
 import numpy as np
 

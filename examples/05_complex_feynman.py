@@ -1,14 +1,13 @@
 """Complex-valued TCI end-to-end (BASELINE config 5 pattern).
 
-A Feynman-type complex integrand exp(i·Σv)/(1+|v|²) learned by TCI2. No
-TPU backend in this image executes complex dtypes, so the TPU-native path
-carries the value as an explicit (re, im) f64 pair — write the integrand
-pair-valued and pass pair_output=True; the host recombines to complex128.
+A Feynman-type complex integrand exp(i·Σv)/(1+|v|²) learned by TCI2. The
+device path here carries the value as an explicit (re, im) f64 pair — the
+integrand is written pair-valued and passed with pair_output=True; the host
+recombines to complex128. On backends that execute complex128 (CPU, GPU) a
+complex-valued integrand with dtype=np.complex128 works as well.
 """
 
-import _common
-
-_common.setup_backend()
+import _common  # noqa: F401  (repo root on sys.path)
 
 import numpy as np
 

@@ -1,4 +1,5 @@
-"""Multi-chip TCI on a device mesh (virtual 8-device CPU mesh here).
+"""Multi-device TCI on a device mesh over the default platform's devices (up
+to 8; under JAX_PLATFORMS=cpu these are 8 virtual CPU devices).
 
 Parallel axes (SURVEY §2.5):
 1. data-parallel sampling — JaxBatchEvaluator(mesh=...) shards the Π-panel
@@ -11,8 +12,8 @@ Parallel axes (SURVEY §2.5):
    bond split's elimination tensor-parallel, bit-identical to the
    single-device device tier.
 
-On a real pod the same code runs with the mesh over TPU chips and the
-collectives riding ICI.
+On a multi-GPU host the same code runs over the GPUs, with XLA handing the
+collectives to NCCL.
 """
 
 import os
@@ -22,9 +23,7 @@ os.environ["XLA_FLAGS"] = (
     + " --xla_force_host_platform_device_count=8"
 )
 
-import _common
-
-_common.setup_backend()
+import _common  # noqa: F401  (repo root on sys.path)
 
 import numpy as np
 
@@ -32,9 +31,10 @@ import tci_tpu as tci
 from tci_tpu import JaxBatchEvaluator
 from tci_tpu.parallel.mesh import default_mesh
 
+import jax
 import jax.numpy as jnp
 
-mesh = default_mesh(8)
+mesh = default_mesh(min(8, len(jax.devices())))
 print(f"mesh: {mesh.devices.shape} over {mesh.devices.flat[0].platform}")
 
 localdims = [6] * 6

@@ -6,9 +6,7 @@ and `optimize` on the restored object resumes sweeping — run a coarse pass,
 save, reload later, and refine to a tighter tolerance.
 """
 
-import _common
-
-_common.setup_backend()
+import _common  # noqa: F401  (repo root on sys.path)
 
 import os
 import tempfile

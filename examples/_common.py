@@ -1,15 +1,8 @@
 """Shared example setup: make the repo importable when the package is not
-installed, and force the CPU backend unless the user opts into the
-environment's accelerator with TCI_TPU_EXAMPLES_BACKEND=tpu."""
+installed. Examples run on JAX's default backend; set JAX_PLATFORMS=cpu to
+run them on the host CPU."""
 
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def setup_backend():
-    if os.environ.get("TCI_TPU_EXAMPLES_BACKEND", "cpu").lower() == "cpu":
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")

@@ -1,14 +1,16 @@
-"""tci_tpu — a TPU-native tensor cross interpolation (TCI) framework on JAX/XLA/Pallas.
+"""tci_tpu — a tensor cross interpolation (TCI) framework on JAX/XLA.
 
 A from-scratch rebuild of the capabilities of the Julia reference
-``TensorCrossInterpolation.jl`` (see /root/reference, SURVEY.md), designed TPU-first:
+``TensorCrossInterpolation.jl`` (SURVEY.md), running on JAX's default
+accelerator (an NVIDIA GPU) or the host CPU:
 
-- Rank-revealing LU / ACA pivot searches run as jit-compiled fixed-shape XLA loops
-  (and Pallas kernels on TPU), with padding + masking instead of dynamic shapes so
-  adaptive rank growth never triggers recompiles beyond a few size buckets.
-- Black-box function sampling is batched: index panels are assembled host-side and
-  evaluated through vmap / shard_map adapters that fan out across a TPU mesh.
-- Tensor-train evaluation, summation, compression and contraction lower to MXU
+- Rank-revealing LU / ACA pivot searches run as jit-compiled fixed-shape XLA
+  loops, with padding + masking instead of dynamic shapes so adaptive rank
+  growth never triggers recompiles beyond a few size buckets.
+- Black-box function sampling is batched: index panels are assembled host-side
+  and evaluated through vmap / shard_map adapters that fan out across a device
+  mesh.
+- Tensor-train evaluation, summation, compression and contraction lower to
   einsums.
 
 Public API mirrors the reference (reference file: src/TensorCrossInterpolation.jl:87-97):

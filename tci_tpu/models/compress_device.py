@@ -1,6 +1,6 @@
 """Device-resident tensor-train compression.
 
-TPU-native counterpart of the two-pass ``TensorTrain.compress`` sweep
+Device counterpart of the two-pass ``TensorTrain.compress`` sweep
 (reference: src/tensortrain.jl:302-348): the L→R exact orthogonalization
 pass and the R→L truncating pass run as ONE XLA program over the whole
 chain — every bond split is the masked rank-revealing LU kernel
@@ -17,7 +17,7 @@ abstol=0; ``normalizeerror=False`` → reltol=1e-14, abstol=tolerance. Only
 stay on the host tier).
 
 Complex tensor trains run as (re, im) f64 pair programs
-(ops/complex_pair.py) — no TPU backend executes complex dtypes.
+(ops/complex_pair.py).
 """
 
 from __future__ import annotations

@@ -28,8 +28,8 @@ def estimatetrueerror(
 
     All starts advance in lock-step (_floatingzone_batch): per leg round,
     every active start's candidate rows evaluate in ONE batched f call and
-    one batched TT evaluation — on a TPU evaluator this is ~(starts x legs)
-    fewer dispatches than the reference's per-start sweep
+    one batched TT evaluation — on a device evaluator this is
+    ~(starts x legs) fewer dispatches than the reference's per-start sweep
     (globalsearch.jl:52-83), with identical per-start trajectories."""
     if nsearch <= 0 and initialpoints is None:
         raise ValueError("No search is performed")

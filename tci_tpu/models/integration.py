@@ -14,11 +14,10 @@ from ..ops.kronrod import kronrod
 from .tensorci2 import crossinterpolate2
 
 # jax_native evaluator reuse across integrate() calls: every NEW jit closure
-# re-uploads its compiled programs to the device (seconds per program over a
-# remote link — round-2/3 finding: a "warm" second integrate() call that
-# rebuilt its evaluator re-paid ~60 s of program loads). Keyed weakly by the
-# user integrand, then by the grid/type signature: alternating two grids or
-# GK orders on the same f keeps both evaluators live (one slot per
+# re-traces and re-loads its compiled programs, so a "warm" second
+# integrate() call that rebuilt its evaluator would re-pay them. Keyed weakly
+# by the user integrand, then by the grid/type signature: alternating two
+# grids or GK orders on the same f keeps both evaluators live (one slot per
 # signature, not per integrand).
 import weakref
 
@@ -112,10 +111,9 @@ def integrate(
         ngrid = nodes_d.shape[1]
 
         def Fjax(idx):
-            # Node/weight lookups as one-hot contractions, NOT gathers:
-            # table gathers lower poorly on TPU (measured 27x slower at
-            # panel scale — they dominated the whole-sweep cost), while the
-            # (N, d) one-hot contraction is pure VPU work.
+            # Node/weight lookups as one-hot contractions, not gathers: the
+            # (N, d) one-hot contraction is elementwise work that fuses into
+            # the sampling program.
             oh = jax.nn.one_hot(idx, ngrid, dtype=nodes_d.dtype)  # (N, d)
             x = jnp.sum(oh * nodes_d, axis=1)
             # Product of weights via log-sum for numerical range. Mask the

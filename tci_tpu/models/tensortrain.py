@@ -8,8 +8,8 @@ O(n d r^2) reduction (:428-441), addition is block-diagonal core stacking
 (tensortrain.jl:302-348) over LU/CI/SVD splits.
 
 Core data lives in numpy on the host (TT cores are small); batched evaluation
-for TPU throughput is provided separately via `batch_evaluator` which builds a
-jitted MXU einsum chain.
+for device throughput is provided separately via `batch_evaluator` which builds
+a jitted einsum chain.
 """
 
 from __future__ import annotations

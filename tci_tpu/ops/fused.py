@@ -4,7 +4,7 @@ as ONE jit-compiled device program.
 TCI's two-site update (tensorci2.jl:825-930) needs, per bond: sample the Π
 panel, factorize it, and extract the left/right CI factors. Doing these as
 separate host-driven steps costs several dispatch+transfer round trips per
-bond — significant over a remote TPU link and wasteful even locally. When the
+bond. When the
 integrand is jax-traceable, this module compiles the whole bond update into a
 single XLA program: the panel never leaves the device, and the factor algebra
 (triangular solves + permutation scatters, mirroring matrixluci.jl:194-241)
@@ -64,8 +64,8 @@ def ci_factors(A, rowperm, colperm, k, leftorthogonal: bool, dtype):
 
 def panel_solve_pinv(Pi1, P, n_ip, dtype):
     """T = Π₁ · P^{-1} on device, with P padded to identity outside its true
-    n_ip x n_ip block (complete-pivot rrLU + two triangular solves; XLA's
-    LuDecomposition has no f64 TPU lowering)."""
+    n_ip x n_ip block (complete-pivot rrLU + two masked triangular solves,
+    so the dynamic rank needs no dynamic shapes)."""
     n = P.shape[0]
     A, rowperm, colperm, k, _, _ = _rrlu_state(
         P, n_ip, n_ip, n_ip, jnp.float64(0.0), jnp.float64(0.0), True
@@ -179,9 +179,8 @@ def pad_index_panels(
 def _pow2_at_least(n: int, floor: int = 128) -> int:
     """Monotone capacity quantum: bucket(n) (<= 25% overshoot, ~4 sizes per
     octave) with a floor. A plain next-power-of-two overshoots by up to 2x,
-    and the f64 elimination cost scales with the PADDED panel area (f64 is
-    emulated on TPU — streaming-bound at ~30 GB/s effective), so a 2x pad
-    on each axis costs ~4x wall on large panels."""
+    and the elimination cost scales with the PADDED panel area, so a 2x pad
+    on each axis costs ~4x on large panels."""
     return bucket(max(int(n), int(floor), 1))
 
 
@@ -445,7 +444,7 @@ def make_panel_sampler(fjax: Callable, dtype=jnp.float64):
     jax-traceable integrand, materializing the panel costs one device
     program, after which the rook slab iteration runs against device-resident
     data instead of paying one host round trip per sampled slab
-    (tensorci2.jl:764-804's lazy SubMatrix, re-designed for TPU)."""
+    (tensorci2.jl:764-804's lazy SubMatrix, re-designed for a device)."""
 
     @jax.jit
     def sample(Ic, Jc, m_true, n_true):

@@ -220,7 +220,10 @@ def rrlu(
 
     pivotsearch="full" (default): complete pivoting; the pivot loop runs as
     one jit-compiled XLA program (lu_kernel.py); stop rule and
-    at-least-one-pivot semantics match matrixlu.jl:346-396.
+    at-least-one-pivot semantics match matrixlu.jl:346-396. Without
+    ``mesh=`` it runs on the host CPU backend by default
+    (``lu_kernel.HOST_RRLU_BACKEND``): the matrix is a host NumPy array, so
+    its time is a host-CPU time, not an accelerator time.
 
     pivotsearch="rook": the reference's adaptive rook scheme
     (arrlu, matrixlu.jl:492-569) against the device-resident matrix, traced
@@ -228,8 +231,8 @@ def rrlu(
     production path for large panels: slab traffic is O(m·r²) instead of
     complete pivoting's O(m·n·r). With precision="mixed" (f64 input) the
     pivot hunt runs in f32 while the factors are rebuilt in f64 from the
-    pivot sets — ~5x faster slab eliminations on TPU (no native f64), same
-    reconstruction quality down to 14-decade spectra. ``hunt_stages``
+    pivot sets, with the same reconstruction quality down to 14-decade
+    spectra. ``hunt_stages``
     (mixed only; default 1, or 2 when reltol/abstol demand more than f32's
     ~1e-7 resolution) adds deflated re-hunts for deep spectra. ``maxrank``
     doubles as the slab width (capped at min(m, n)): pass the target rank —
@@ -239,8 +242,8 @@ def rrlu(
 
     With ``mesh=`` (a 1-D ``jax.sharding.Mesh``) the full-pivot elimination
     runs tensor-parallel over the mesh's devices with bit-identical pivot
-    order (ops/lu_sharded.py) — for panels that exceed one chip's HBM or to
-    scale the Schur-update GEMMs.
+    order (ops/lu_sharded.py) — for panels that exceed one device's memory
+    or to scale the Schur-update work.
     """
     A = np.asarray(A)
     if pivotsearch == "rook":

@@ -1,3 +1,3 @@
 """L2 function-evaluation runtime: the batch-evaluation protocol, vmap/
-shard_map adapters that fan function sampling out across TPU devices, and the
+shard_map adapters that fan function sampling out across devices, and the
 memoizing CachedFunction."""

@@ -111,7 +111,7 @@ def test_jax_evaluator_protocol(rng):
 
 @pytest.mark.slow
 def test_jax_evaluator(rng):
-    """TPU-native path: jax-traceable f evaluated through vmapped jit."""
+    """Device path: jax-traceable f evaluated through vmapped jit."""
     import jax.numpy as jnp
 
     L = 6

@@ -214,7 +214,7 @@ def test_rook_fused_maxrank_cap(rng):
 def test_rook_fused_mixed_precision(rng, leftorthogonal):
     """precision="mixed": pivot hunting in f32, f64 factors rebuilt from the
     pivot sets by _assemble_mixed (fixed-order block LU + Gauss-Jordan +
-    MXU completion GEMMs). Rank, reconstruction quality and factor
+    completion GEMMs). Rank, reconstruction quality and factor
     triangularity must match the pure-f64 path; the f64 rank-detection
     prepass must reject f32 noise pivots past the true rank."""
     from tci_tpu.ops.lu_device import rrlu_rook_device_fused

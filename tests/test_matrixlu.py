@@ -357,3 +357,33 @@ class TestRrluRookPublicAPI:
             assert np.abs(
                 np.asarray(lu.left() @ lu.right()) - A
             ).max() < 1e-9 * amax
+
+
+@pytest.mark.parametrize("placement", ["cpu", "default"])
+def test_rrlu_raw_f32_panel_takes_xla_route(monkeypatch, placement):
+    """A float32 panel runs the same XLA elimination (_rrlu_while, in
+    float64) as its float64 copy, on either placement, and agrees with it
+    within float32 resolution."""
+    from tci_tpu.ops import lu_kernel
+
+    monkeypatch.setattr(lu_kernel, "HOST_RRLU_BACKEND", placement)
+    dtypes = []
+    kernel = lu_kernel._rrlu_while
+
+    def counted(A, *args, **kwargs):
+        dtypes.append(A.dtype)
+        return kernel(A, *args, **kwargs)
+
+    monkeypatch.setattr(lu_kernel, "_rrlu_while", counted)
+    rng = np.random.default_rng(3)
+    A = (rng.standard_normal((40, 6)) @ rng.standard_normal((6, 30))).astype(
+        np.float32)
+    out32 = lu_kernel.rrlu_raw(A, 20, 1e-5, 0.0, True)
+    out64 = lu_kernel.rrlu_raw(A.astype(np.float64), 20, 1e-5, 0.0, True)
+    assert dtypes == [np.float64, np.float64]
+    assert out32[3] == out64[3] == 6
+    np.testing.assert_array_equal(out32[1], out64[1])
+    np.testing.assert_array_equal(out32[2], out64[2])
+    amax = float(np.abs(A).max())
+    np.testing.assert_allclose(out32[0], out64[0], rtol=0,
+                               atol=1e-6 * amax)

@@ -58,12 +58,20 @@ def test_sharded_jax_evaluator():
     assert np.allclose(vals, ref)
 
 
-def test_default_mesh_falls_back_to_cpu_devices():
+def test_default_mesh_spans_default_platform_devices():
     from tci_tpu.parallel.mesh import default_mesh
 
     mesh = default_mesh(8)
     assert mesh.devices.shape == (8,)
     assert mesh.axis_names == ("batch",)
+    assert list(mesh.devices) == jax.devices()[:8]
+
+
+def test_default_mesh_raises_when_platform_has_too_few_devices():
+    from tci_tpu.parallel.mesh import default_mesh
+
+    with pytest.raises(ValueError, match="requested a 9-device mesh"):
+        default_mesh(9)
 
 
 def test_graft_entry_single_chip():
